@@ -1,8 +1,8 @@
-"""compose_tpu: a TPU-native semi-Lagrangian tracer-transport core.
+"""compose_tpu: a JAX semi-Lagrangian tracer-transport core.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 E3SM-Project/COMPOSE (CEDR property preservation, SIQK sphere kernels, and
-the slmmir semi-Lagrangian transport driver), built for TPU: dense
+the slmmir semi-Lagrangian transport driver), built for accelerators: dense
 fixed-shape arrays over cubed-sphere cells, batched local solvers, masked
 fixed-trip Newton loops, deterministic fixed-tree reductions, and
 `jax.sharding` collectives for multi-chip runs.

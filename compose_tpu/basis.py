@@ -9,7 +9,7 @@ Lagrange eval), slmm_basis.hpp (Basis interface) and slmm_islet.{hpp,cpp}
     reference tables to machine precision.
   - Evaluation is vectorized over query points and returns (..., np) arrays;
     region-wise Islet evaluation uses branch-free masked selection so it jits
-    cleanly for TPU.
+    cleanly.
 
 The Islet modified quadrature weights ARE copied as numeric data - they are
 offline-derived constants (see slmm_islet.hpp:55-95; SURVEY.md notes they are

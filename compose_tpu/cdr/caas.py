@@ -6,7 +6,7 @@ mass-target sum, min sum, max sum), allreduces them, then distributes the
 mass surplus/deficit proportionally to the remaining headroom. Here it is a
 pure function over dense (nt, ncell) arrays; the reduction is either a
 deterministic fixed-tree sum (single chip / BFB contract) or `psum` over a
-mesh axis (multi-chip; TPU psum is deterministic for a fixed topology, and
+mesh axis (multi-chip; psum is deterministic for a fixed topology, and
 the local pre-reduction uses the same fixed tree, reproducing the
 UserAllReducer n_accum_in_place contract, cedr_caas.hpp:27-49).
 """

@@ -1,4 +1,4 @@
-"""QLT: quasi-local tree constrained density reconstructor, batched for TPU.
+"""QLT: quasi-local tree constrained density reconstructor, batched.
 
 Counterpart of /root/reference/cedr/cedr_qlt.{hpp,cpp,_inl.hpp}. The
 reference runs a leaf->root MPI sweep (combine kid data per level) and a

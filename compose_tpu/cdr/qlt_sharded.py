@@ -3,7 +3,7 @@
 Counterpart of the reference's rank-pruned trees + level schedules
 (/root/reference/cedr/cedr_tree.cpp:185-213 builds the deadlock-free level
 schedule; cedr_qlt.cpp:619-640 runs the l2r/r2l sweeps with one message per
-rank per level). The TPU-native design exploits that device shards are
+rank per level). This design exploits that device shards are
 CONTIGUOUS leaf blocks, so each shard's block decomposes into O(log n)
 maximal aligned subtrees of the GLOBAL tree (the same decomposition as
 cdr/bfb.py):

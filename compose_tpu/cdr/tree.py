@@ -2,7 +2,7 @@
 
 Counterpart of /root/reference/cedr/cedr_tree.{hpp,cpp}. The reference builds
 a pointer-based caller tree, prunes it per MPI rank, and derives a level
-schedule with per-level message consolidation. On TPU the whole tree lives in
+schedule with per-level message consolidation. Here the whole tree lives in
 flat index arrays: nodes are numbered leaves-first, every internal node lists
 its two kids, and nodes are grouped into levels (level = max(kid levels)+1,
 exactly the reference's deadlock-free schedule, cedr_tree.cpp:185-213). The

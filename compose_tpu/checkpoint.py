@@ -1,7 +1,7 @@
 """Checkpoint / resume for transport runs.
 
 The reference has no checkpointing (SURVEY.md §5: closest is a binary state
-dump, slmmir.cpp:245-268); for a production TPU framework we add it as new
+dump, slmmir.cpp:245-268); for a production framework we add it as new
 design. State is the minimal restart tuple (step index, time, rho, q) plus
 the run configuration needed to validate compatibility. Uses orbax when
 available (sharded-array friendly), with a plain npz fallback.

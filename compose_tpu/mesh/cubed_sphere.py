@@ -1,6 +1,6 @@
 """Quasiuniform equiangular cubed-sphere spectral-element mesh.
 
-TPU-first counterpart of /root/reference/methods/slmm/slmm_mesh.cpp. The
+Array-based counterpart of /root/reference/methods/slmm/slmm_mesh.cpp. The
 reference builds six planar meshes, stitches shared vertices by bookkeeping,
 and derives CGLL/DGLL numberings by sequential traversal. Here everything is
 closed-form and array-based:
@@ -90,7 +90,7 @@ class CubedSphereMesh:
     cgll_xyz: jnp.ndarray         # (cnn, 3) canonical node coordinates
     cgll_rep: jnp.ndarray         # (cnn,) int32: a representative dgll index
     # Inverse map: the (<= 4) DGLL slots coinciding at each continuous node,
-    # padded (gather-based DSS: TPU scatters are slow, gathers are not).
+    # padded (gather-based DSS: no scatter-add, so no atomics).
     c2d_idx: jnp.ndarray          # (cnn, 4) int32
     c2d_mask: jnp.ndarray         # (cnn, 4) bool
     jac_node: jnp.ndarray         # (ncell, np*np) corner-bilinear |J| at nodes

@@ -3,7 +3,7 @@
 Counterpart of the reference's RemapData setup
 (/root/reference/methods/slmm/slmmir_remap_data.cpp): per-cell full mass
 matrix (assembled by triangle quadrature on the sphere, then Cholesky
-factored) plus what the TPU-first redesign needs instead of the octree:
+factored) plus what the array-based redesign needs instead of the octree:
 
   - a deduplicated corner-vertex array + cell->vertex map, so advected cells
     stay watertight (every cell sees bitwise-identical advected corners);

@@ -1,6 +1,6 @@
 """Batched local QP / filter solvers.
 
-TPU-native counterparts of the reference's device-side local solvers:
+Batched counterparts of the reference's device-side local solvers:
   - caas:             /root/reference/cedr/cedr_local_inl.hpp:272-306
   - solve_1eq_bc_qp:  /root/reference/cedr/cedr_local_inl.hpp:167-270 and
                       /root/reference/methods/slmm/slmm_spf.cpp:46-165
@@ -12,8 +12,8 @@ broadcast over arbitrary leading batch axes, so one call solves every cell's
 QP at once. Data-dependent iteration (the reference's bisection-safeguarded
 Newton with early exit) becomes a fixed-trip masked loop: each batch lane
 carries `done`/`info` state and stops changing once converged. This keeps the
-whole solve a single fused XLA computation - the TPU way to run millions of
-tiny independent QPs.
+whole solve a single fused XLA computation - the accelerator way to run
+millions of tiny independent QPs.
 
 Problem solved (Bochev-Ridzal-Shashkov / Guba et al. JCP 2014):
     min_x sum_i w_i (x_i - y_i)^2   s.t.  a'x = b,  xlo <= x <= xhi

@@ -3,8 +3,8 @@
 The reference guarantees bit-for-bit (BFB) reproducibility of mass sums under
 changes in thread count / rank decomposition via fixed-order accumulation
 (/root/reference/methods/slmm/slmm_accum.hpp:12-34) and a fixed-topology tree
-allreduce (/root/reference/cedr/cedr_bfb_tree_allreduce.hpp). On TPU, XLA
-reductions are deterministic for a fixed partitioning, but the reduction order
+allreduce (/root/reference/cedr/cedr_bfb_tree_allreduce.hpp). XLA's own
+reductions choose their order per backend and per partitioning, so the order
 changes with sharding. `bfb_sum` fixes the summation order to a binary tree
 over the *global* index space, so the result is bitwise identical regardless
 of how (or whether) the array is sharded - the same contract as the
@@ -45,7 +45,7 @@ def bfb_sum(x, axis: int = -1):
         # Adjacent-pair fold via reshape (bitwise identical to the strided
         # x[0::2] + x[1::2] formulation, but the reshape keeps the access
         # contiguous - the strided slices defeat XLA's fusion inside the
-        # full transport step and cost ~13 ms/step at the bench config).
+        # full transport step).
         y = x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2))
         x = y[..., 0] + y[..., 1]
     return x[..., 0]
@@ -63,8 +63,8 @@ def bfb_sum_cells(x):
     subtree of the global adjacent-pair tree (cell c's slots start at
     c*np2), so evaluating the per-cell folds first and then the cell-level
     tree computes the EXACT same DAG as bfb_sum(x.reshape(..., -1)) -
-    bitwise identical, measurably faster on TPU (the within-cell folds
-    stay in-register). Falls back to the flat evaluation otherwise."""
+    bitwise identical, with the within-cell folds kept local to each cell.
+    Falls back to the flat evaluation otherwise."""
     np2 = x.shape[-1]
     if np2 & (np2 - 1):
         return bfb_sum(x.reshape(x.shape[:-2] + (-1,)), axis=-1)
@@ -74,34 +74,3 @@ def bfb_sum_cells(x):
         y = z[..., 0] + z[..., 1]
     return bfb_sum(y[..., 0], axis=-1)
 
-
-# ---------------------------------------------------------------------------
-# Exact f64 gathers via f32 component gathers. On TPU v5e, f64 gathers run
-# ~17 GB/s regardless of layout while f32 gathers run several times faster
-# (f64 is software-emulated end to end). A float64 value x splits EXACTLY
-# into three non-overlapping float32 components h + m + l (24*3 = 72 >= 53
-# mantissa bits), and because the true sum IS the representable x, the f64
-# reconstruction (h + m) + l is exact. Gathering the three f32 planes and
-# recombining therefore reproduces the direct f64 gather BITWISE at a
-# fraction of the bandwidth cost.
-
-def split3_f32(x):
-    """x (f64) -> (h, m, l) f32 with x == (h + m) + l exactly."""
-    import jax.numpy as jnp
-    h = x.astype(jnp.float32)
-    r = x - h.astype(jnp.float64)
-    m = r.astype(jnp.float32)
-    l = (r - m.astype(jnp.float64)).astype(jnp.float32)
-    return h, m, l
-
-
-def gather_f64_3x32(x, idx):
-    """Bitwise-exact x[idx] for f64 x via three f32 gathers.
-
-    idx indexes the LEADING axis of x (same semantics as x[idx]); trailing
-    axes ride along as row payload.
-    """
-    import jax.numpy as jnp
-    h, m, l = split3_f32(x)
-    return (h[idx].astype(jnp.float64) + m[idx].astype(jnp.float64)) \
-        + l[idx].astype(jnp.float64)

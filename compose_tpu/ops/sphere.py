@@ -1,6 +1,6 @@
 """Sphere geometry primitives, batched and jit-friendly.
 
-TPU-native counterpart of the reference's SphereGeometry statics
+Batched counterpart of the reference's SphereGeometry statics
 (/root/reference/siqk/siqk_geometry.hpp:118-309) and the lat-lon helpers
 (/root/reference/methods/slmm/slmm_util.hpp:40-72). All functions operate on
 arrays whose last axis is the 3-vector axis, so they vmap/broadcast freely.

@@ -1,4 +1,4 @@
-"""Spherical-quad <-> reference-square maps, batched for TPU.
+"""Spherical-quad <-> reference-square maps, batched.
 
 Counterpart of /root/reference/siqk/siqk_sqr.hpp (bilinear map + Newton
 inverse) and the improved solver at
@@ -10,7 +10,7 @@ the standard p=1 isoparametric form on [-1,1]^2:
 
 The inverse (sphere -> ref) is a fixed-iteration masked Newton solve - all
 points iterate the same number of times so the computation is a static XLA
-graph; converged points simply stop updating. This is the idiomatic TPU
+graph; converged points simply stop updating. This is the idiomatic SIMD
 replacement for the reference's early-exit scalar loop.
 
 Conventions: `corners` has shape (..., 4, 3), CCW; (a,b) in [-1,1]^2 with

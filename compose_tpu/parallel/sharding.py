@@ -1,7 +1,7 @@
 """Multi-chip sharding for the transport step.
 
 The scale axes of this framework are mesh cells x tracers (SURVEY.md §2.5):
-cells are the sharded (data-parallel) axis over the TPU device mesh; tracers
+cells are the sharded (data-parallel) axis over the device mesh; tracers
 and the np^2 DOFs stay dense per chip (exactly the reference's bulk-buffer
 vectorization, cedr_qlt.hpp:44-127). We annotate shardings with
 `jax.sharding.NamedSharding` and jit the SAME single-chip step function -
@@ -38,10 +38,6 @@ def sharded_step(model, mesh: Mesh):
     over replicated mesh arrays; GSPMD partitions the per-cell compute and
     inserts collectives for the cross-cell pieces (departure gathers, DSS
     scatter, global reductions)."""
-    # pallas_call has no GSPMD partitioning rule; the sharded step must
-    # take the XLA roll path for the DSS (see FaceDss._use_pallas).
-    if getattr(model, "face_dss", None) is not None:
-        model.face_dss.pallas_enabled = False
     s_rho = NamedSharding(mesh, P("cells", None))
     s_q = NamedSharding(mesh, P(None, "cells", None))
     s_scalar = NamedSharding(mesh, P())

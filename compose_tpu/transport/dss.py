@@ -3,9 +3,11 @@
 Counterpart of /root/reference/methods/slmm/slmmir_d2c.{hpp,cpp} (D2Cer). The
 reference builds CSR transpose maps and loops per continuous node; here the
 same transfers are `segment_sum`s over the dgll->cgll index map - one fused
-gather/scatter per field, batched over tracers. Scatter-adds in XLA are
-deterministic for a fixed layout, and the data order is fixed by the global
-node numbering, so sums are reproducible run to run.
+gather/scatter per field, batched over tracers. On a GPU a scatter-add
+accumulates with atomics in an order that changes between runs, so the
+transport steps use the gather variants below (fixed order, bitwise
+reproducible on every backend); the scatter forms serve output (io.py) and
+tests.
 
 Conventions: fields carry the DGLL axis LAST, shape (..., ndgll); the
 continuous axis is also last, (..., cnn).
@@ -84,7 +86,8 @@ def dss_q(rho_dg, q_dg, d2c_map, dgbfi, cnn: int):
 # ----------------------------------------------------------------------------
 # Gather-based variants: the inverse map has <= 4 coincident DGLL slots per
 # continuous node (mesh.c2d_idx/c2d_mask), so the per-node reduction becomes
-# a (cnn, 4) gather + masked sum - no scatter, which TPUs execute far faster.
+# a (cnn, 4) gather + masked sum - no scatter-add, so no atomics and a
+# fixed summation order on every backend.
 
 @jax.jit
 def d2c_gather(dg, c2d_idx, c2d_mask, dgbfi, clip_minmax: bool = True):
@@ -130,10 +133,9 @@ def dss_q_gather(rho_dg, q_dg, d2c_map, c2d_idx, c2d_mask, dgbfi):
 
 
 # Tracer-innermost variants: indexing the LAST axis of a (nt, dnn) field
-# with the (cnn, 4) inverse map gathers SCALARS - the worst TPU access
-# pattern. Transposing so the tracer axis is innermost makes every gather
-# row nt elements wide; measured 3.6x faster at nt=40 on v5e, bitwise
-# identical results (the arithmetic per node is unchanged).
+# with the (cnn, 4) inverse map gathers SCALARS. Transposing so the tracer
+# axis is innermost makes every gather row nt elements wide; the results
+# are bitwise identical (the arithmetic per node is unchanged).
 
 @jax.jit
 def dss_gather_t(dg, d2c_map, c2d_idx, c2d_mask, dgbfi,

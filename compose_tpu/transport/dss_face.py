@@ -3,7 +3,7 @@
 The reference's D2Cer (methods/slmm/slmmir_d2c.{hpp,cpp}) loops a CSR map
 over continuous nodes. The gather formulation in transport/dss.py avoids
 scatters but still issues one gather row per (continuous node x <=4
-coincident slots), and TPU gathers serialize per row.
+coincident slots).
 
 This module exploits the cubed-sphere structure instead: cells are numbered
 (face, cy, cx) row-major and nodes (j, i) within a cell, so in the FLAT
@@ -23,17 +23,6 @@ only nodes the passes miss are on CUBE edges (two or three faces meet,
 ~12*ne*(np-1) of them); those are fixed afterwards with the exact gather
 formula over their <=4 coincident slots.
 
-Two execution paths with the same merge-pass structure:
-  - XLA (any dtype/backend): jnp.roll merges, used for f64 and on CPU;
-  - Pallas TPU kernel (f32): all merges fuse into one VMEM-resident kernel
-    (one HBM read + one write per tracer block) - measured 8.8x over the
-    round-1 slice-update formulation at ne30/np4/nt40 on v5e. The paths
-    agree to f32 roundoff, not bitwise: dss() divides by the precomputed
-    f64-merged den0 on the XLA path but by the in-kernel f32-merged den on
-    the Pallas path. The Pallas path is gated on single-device f32 TPU
-    inputs and on a VMEM lane budget (see _use_pallas); everything else
-    falls back to XLA.
-
 The construction is validated structurally at build time (union-find over
 the pass-merged pairs vs. the mesh's d2c map), so any mesh whose numbering
 deviates (e.g. subcell meshes) is rejected and the caller falls back to the
@@ -41,20 +30,9 @@ gather path. Results are deterministic (fixed pass order) and agree with
 dss.py to roundoff (summation order within a coincident set differs).
 """
 
-import functools
-
 import numpy as np
 
-import jax
 import jax.numpy as jnp
-
-from ..ops import df64
-
-try:                          # pallas-TPU registration fails on cpu-only
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-except Exception:             # pragma: no cover - exercised under cpu tests
-    pl = pltpu = None
 
 
 def _decode_slots(ne, np_):
@@ -69,112 +47,6 @@ def _decode_slots(ne, np_):
     return f, cy, cx, j, i
 
 
-@functools.lru_cache(maxsize=None)
-def _q_kernel(dx, dy, n, nrow):
-    """Pallas TPU kernel for the f32 dss_q merge block (fix pass excluded).
-
-    Block layout: q rows (nrow, n) per program; weight/mask rows (1, n)
-    broadcast. All merges are lane-rolls in VMEM.
-    """
-    dx, dy, n = np.int32(dx), np.int32(dy), np.int32(n)
-
-    def kernel(w_ref, F_ref, den0_ref, mxl_ref, mxr_ref, myd_ref, myu_ref,
-               q_ref, out_ref):
-        mxl, mxr = mxl_ref[...], mxr_ref[...]
-        myd, myu = myd_ref[...], myu_ref[...]
-
-        def madd(a):
-            xm = (a + mxl * pltpu.roll(a, n - dx, 1)
-                  + mxr * pltpu.roll(a, dx, 1))
-            return (xm + myd * pltpu.roll(xm, n - dy, 1)
-                    + myu * pltpu.roll(xm, dy, 1))
-
-        def mop(a, op):
-            xm = jnp.where(mxl > 0, op(a, pltpu.roll(a, n - dx, 1)), a)
-            xm = jnp.where(mxr > 0, op(xm, pltpu.roll(a, dx, 1)), xm)
-            ym = jnp.where(myd > 0, op(xm, pltpu.roll(xm, n - dy, 1)), xm)
-            return jnp.where(myu > 0, op(ym, pltpu.roll(xm, dy, 1)), ym)
-
-        q = q_ref[...]
-        wf = w_ref[...]
-        Ff = F_ref[...]
-        num = madd(wf * q)
-        num0 = madd(Ff * q)
-        den = madd(wf)
-        mn = mop(q, jnp.minimum)
-        mx = mop(q, jnp.maximum)
-        ok = den > 0
-        cg = jnp.where(ok, num / jnp.where(ok, den, 1.0),
-                       num0 / den0_ref[...])
-        out_ref[...] = jnp.clip(cg, mn, mx)
-
-    return kernel
-
-
-@functools.lru_cache(maxsize=None)
-def _q_kernel_dd(dx, dy, n, nrow):
-    """Pallas TPU kernel for the f64 dss_q merge block via explicit
-    double-float (two-f32) arithmetic (ops/df64.py).
-
-    XLA's own f64 emulation of the roll-merge chain compiles to dozens of
-    unfused HBM-bound kernels (~4 ms in-step at ne30/nt40); this kernel runs
-    the identical merge structure VMEM-resident on (hi, lo) f32 pairs in one
-    dispatch. Bounds stay exact: the final clip selects among pair values
-    (min/max/select are lexicographic, returning inputs verbatim), so
-    q_out in [min, max] of the coincident slots holds bitwise. The weighted
-    average itself carries df64 (~1e-14 relative) rounding instead of f64
-    (~1e-16) - DSS mass redistribution noise, well inside the 1e-12 mass
-    and 5e-13 bounds invariants (validated on TPU, see tests/test_df64.py
-    for the arithmetic and tools/exp_r5_dd_check.py for the in-situ check).
-    """
-    dx, dy, n = int(dx), int(dy), int(n)
-
-    def kernel(wh_ref, wl_ref, Fh_ref, Fl_ref, mxl_ref, mxr_ref, myd_ref,
-               myu_ref, qh_ref, ql_ref, oh_ref, ol_ref):
-        bxl = mxl_ref[...] > 0
-        bxr = mxr_ref[...] > 0
-        byd = myd_ref[...] > 0
-        byu = myu_ref[...] > 0
-
-        def roll_pair(a, s):
-            return (pltpu.roll(a[0], s, 1), pltpu.roll(a[1], s, 1))
-
-        def masked(m, a):
-            z = jnp.zeros_like(a[0])
-            return (jnp.where(m, a[0], z), jnp.where(m, a[1], z))
-
-        def madd(a):
-            xm = df64.add(df64.add(a, masked(bxl, roll_pair(a, n - dx))),
-                          masked(bxr, roll_pair(a, dx)))
-            return df64.add(
-                df64.add(xm, masked(byd, roll_pair(xm, n - dy))),
-                masked(byu, roll_pair(xm, dy)))
-
-        def mop(a, op):
-            xm = df64.select(bxl, op(a, roll_pair(a, n - dx)), a)
-            xm = df64.select(bxr, op(xm, roll_pair(a, dx)), xm)
-            ym = df64.select(byd, op(xm, roll_pair(xm, n - dy)), xm)
-            return df64.select(byu, op(ym, roll_pair(xm, dy)), ym)
-
-        w = (wh_ref[...], wl_ref[...])
-        F = (Fh_ref[...], Fl_ref[...])
-        # Two-stage weights (see the XLA path in dss_q): zero-mass nodes
-        # fall back to the static dgbfi weights. Merged weights are sums of
-        # nonnegative terms, so den > 0 iff den_hi > 0.
-        den = madd(w)
-        w2 = df64.select(den[0] > 0, w, F)
-        den2 = madd(w2)
-        q = (qh_ref[...], ql_ref[...])
-        num = madd(df64.mul(w2, q))
-        mn = mop(q, df64.min_)
-        mx = mop(q, df64.max_)
-        cg = df64.clip(df64.div(num, den2), mn, mx)
-        oh_ref[...] = cg[0]
-        ol_ref[...] = cg[1]
-
-    return kernel
-
-
 class FaceDss:
     """Precomputed face-grid DSS for a standard cubed-sphere mesh.
 
@@ -182,11 +54,8 @@ class FaceDss:
     (face, cy, cx, j, i) row-major layout (validated, not assumed).
     """
 
-    _PALLAS_ROWS = 8          # f32 sublane multiple per kernel program
-
     def __init__(self, ne, np_, d2c_map_np, c2d_idx_np, c2d_mask_np, F):
         self.ne, self.np_ = ne, np_
-        self.pallas_enabled = True
         ncell, np2 = 6 * ne * ne, np_ * np_
         ndgll = ncell * np2
         f, cy, cx, j, i = _decode_slots(ne, np_)
@@ -214,8 +83,6 @@ class FaceDss:
         myd = ((j == np_ - 1) & (cy < ne - 1))[None]
         myu = ((j == 0) & (cy > 0))[None]
         self._bmasks = tuple(jnp.asarray(m) for m in (mxl, mxr, myd, myu))
-        self._fmasks32 = tuple(
-            jnp.asarray(m.astype(np.float32)) for m in (mxl, mxr, myd, myu))
         # den0 (sum of static weights over coincident slots) is static.
         Fm = self._merge_np(np.asarray(F).reshape(-1))
         self.den0 = jnp.asarray(Fm)
@@ -297,13 +164,12 @@ class FaceDss:
         return bool(np.unique(pairs).size == np.unique(class_a).size
                     == np.unique(class_b).size)
 
-    # -- merge passes (XLA; any dtype/backend) ----------------------------
+    # -- merge passes ------------------------------------------------------
     def _merge_add(self, a):
         """Sum-merge the intra-face coincident slots of (rows, ndgll) `a`
         (cube-edge nodes are finished by the fix pass). Masked neighbors
-        enter via `where` selects, not mask multiplies - a f64 multiply is
-        emulated on TPU while a select is cheap, and 1.0*x / 0.0*x give the
-        identical result for finite x."""
+        enter via `where` selects, not mask multiplies, so no neighbor's
+        non-finite value can leak into a slot it does not touch."""
         bxl, bxr, byd, byu = self._bmasks
         dx, dy = self.dx, self.dy
         z = jnp.zeros((), a.dtype)
@@ -358,93 +224,6 @@ class FaceDss:
             upd.reshape(-1, nt).astype(cg.dtype), mode="drop")
         return jnp.moveaxis(outT, 0, -1)
 
-    # -- pallas fast path --------------------------------------------------
-    def _pallas_q(self, wf, qf):
-        """f32 TPU merge block: (1, n) weights, (nt, n) tracers."""
-        nt, n = qf.shape
-        B = self._PALLAS_ROWS
-        ntp = -(-nt // B) * B
-        if ntp != nt:
-            qf = jnp.pad(qf, ((0, ntp - nt), (0, 0)))
-        kern = _q_kernel(self.dx, self.dy, n, B)
-        f32 = jnp.float32
-        mxl, mxr, myd, myu = self._fmasks32
-        row = pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM)
-        blk = pl.BlockSpec((B, n), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        with jax.enable_x64(False):
-            cg = pl.pallas_call(
-                kern,
-                out_shape=jax.ShapeDtypeStruct((ntp, n), f32),
-                grid=(ntp // B,),
-                in_specs=[row] * 7 + [blk],
-                out_specs=blk,
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=100 * 1024 * 1024),
-            )(wf.astype(f32), self.F.reshape(1, -1).astype(f32),
-              self.den0.reshape(1, -1).astype(f32), mxl, mxr, myd, myu, qf)
-        return cg[:nt] if ntp != nt else cg
-
-    def _pallas_q_dd(self, wf64, qf64):
-        """f64 TPU merge block via the df64 kernel: wf64 (1, n) weights,
-        qf64 (nt, n) tracers, both f64. Returns the clipped weighted
-        average, f64."""
-        oh, ol = self._pallas_q_dd_pairs(df64.split_f64(wf64),
-                                         df64.split_f64(qf64))
-        return df64.join_f64((oh, ol))
-
-    def _pallas_q_dd_pairs(self, w_pair, q_pair):
-        """Pair-level entry to the df64 merge kernel: w_pair ((1, n) hi/lo),
-        q_pair ((nt, n) hi/lo). Returns the (hi, lo) merged block (pre
-        edge-fix) - used directly by the fused CDR path to keep pairs
-        flowing between kernels without f64 round trips."""
-        qh, ql = q_pair
-        wh, wl = w_pair
-        nt, n = qh.shape
-        B = self._PALLAS_ROWS
-        ntp = -(-nt // B) * B
-        Fh, Fl = df64.split_f64(self.F.reshape(1, -1).astype(jnp.float64))
-        if ntp != nt:
-            qh = jnp.pad(qh, ((0, ntp - nt), (0, 0)))
-            ql = jnp.pad(ql, ((0, ntp - nt), (0, 0)))
-        kern = _q_kernel_dd(self.dx, self.dy, n, B)
-        f32 = jnp.float32
-        mxl, mxr, myd, myu = self._fmasks32
-        row = pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM)
-        blk = pl.BlockSpec((B, n), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        with jax.enable_x64(False):
-            oh, ol = pl.pallas_call(
-                kern,
-                out_shape=(jax.ShapeDtypeStruct((ntp, n), f32),
-                           jax.ShapeDtypeStruct((ntp, n), f32)),
-                grid=(ntp // B,),
-                in_specs=[row] * 8 + [blk, blk],
-                out_specs=(blk, blk),
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=100 * 1024 * 1024),
-            )(wh, wl, Fh, Fl, mxl, mxr, myd, myu, qh, ql)
-        return oh[:nt], ol[:nt]
-
-    def _use_pallas_dd(self, dtype):
-        return (pl is not None and dtype == jnp.float64
-                and self.pallas_enabled
-                and 2 * self.ndgll <= self._PALLAS_MAX_LANES
-                and jax.default_backend() == "tpu")
-
-    # The kernel keeps full (8, ndgll) + seven (1, ndgll) f32 rows plus
-    # ~15 live roll temporaries in VMEM; stay well under the 100MB
-    # vmem_limit_bytes and fall back to the XLA roll path beyond that
-    # (~ne55 at np4). 1.5e6 lanes * 4B * ~15 ~= 90MB.
-    _PALLAS_MAX_LANES = 1_500_000
-
-    def _use_pallas(self, dtype):
-        # pallas_enabled is cleared by sharded callers: pallas_call has no
-        # GSPMD partitioning rule, so cell-sharded operands must take the
-        # XLA roll path (or a shard_map-wrapped kernel).
-        return (pl is not None and dtype == jnp.float32
-                and self.pallas_enabled
-                and self.ndgll <= self._PALLAS_MAX_LANES
-                and jax.default_backend() == "tpu")
-
     # -- public ops --------------------------------------------------------
     def dss(self, field, clip_minmax=True):
         """DSS a (..., ncell, np2) field with the static dgbfi weights
@@ -454,20 +233,12 @@ class FaceDss:
             field.reshape(1, self.ndgll)
         nt = vf.shape[0]
         Ff = self.F.reshape(-1).astype(vf.dtype)
-        if clip_minmax and self._use_pallas_dd(vf.dtype):
-            # f64 single-field DSS == dss_q with rho = 1 (weights F, F > 0
-            # everywhere so the fallback never fires); same df64 kernel.
-            cg = self._pallas_q_dd(Ff[None], vf)
-        elif clip_minmax and nt > 1 and self._use_pallas(vf.dtype):
-            cg = self._pallas_q(Ff[None], vf)
-        else:
-            num = self._merge_add(Ff[None] * vf)
-            cg = num / self.den0[None].astype(vf.dtype)
-            if clip_minmax:
-                mn = self._merge_op(vf, jnp.minimum)
-                mx = self._merge_op(vf, jnp.maximum)
-                cg = jnp.clip(cg, mn, mx)
+        num = self._merge_add(Ff[None] * vf)
+        cg = num / self.den0[None].astype(vf.dtype)
         if clip_minmax:
+            mn = self._merge_op(vf, jnp.minimum)
+            mx = self._merge_op(vf, jnp.maximum)
+            cg = jnp.clip(cg, mn, mx)
             out = self._fix_q(cg, vf, Ff, Ff)
         else:
             # Unclipped variant: exact weighted average on fix nodes too.
@@ -492,26 +263,19 @@ class FaceDss:
         qf = q.reshape(nt, -1)
         wf = (self.F * rho).reshape(1, -1).astype(qf.dtype)
         Ff = self.F.reshape(-1).astype(qf.dtype)
-        if self._use_pallas_dd(qf.dtype):
-            cg = self._pallas_q_dd(wf, qf)
-        elif self._use_pallas(qf.dtype):
-            cg = self._pallas_q(wf, qf)
-        else:
-            # Two-stage weights: merge w once to find zero-mass nodes, then
-            # blend per-slot (coincident slots share their node's den, so
-            # den>0 nodes get EXACTLY the old w-weighted average while
-            # den==0 nodes get the dgbfi fallback) - this removes the nt
-            # extra `num0` merge rows the old formulation carried for the
-            # fallback. One reciprocal replaces the nt per-tracer divides
-            # (f64 division is emulated on TPU and dominates otherwise).
-            den = self._merge_add(wf)
-            w2 = jnp.where(den > 0, wf, Ff[None])
-            addm = self._merge_add(jnp.concatenate([w2 * qf, w2], axis=0))
-            num, den2 = addm[:nt], addm[nt]
-            ming = jnp.concatenate([qf, -qf], axis=0)
-            minm = self._merge_op(ming, jnp.minimum)
-            mn, mx = minm[:nt], -minm[nt:]
-            cg = num * (1.0 / den2)[None]
-            cg = jnp.clip(cg, mn, mx)
+        # Two-stage weights: merge w once to find zero-mass nodes, then
+        # blend per-slot (coincident slots share their node's den, so den>0
+        # nodes get EXACTLY the w-weighted average while den==0 nodes get
+        # the dgbfi fallback) - no extra nt `num0` merge rows for the
+        # fallback. One reciprocal replaces the nt per-tracer divides.
+        den = self._merge_add(wf)
+        w2 = jnp.where(den > 0, wf, Ff[None])
+        addm = self._merge_add(jnp.concatenate([w2 * qf, w2], axis=0))
+        num, den2 = addm[:nt], addm[nt]
+        ming = jnp.concatenate([qf, -qf], axis=0)
+        minm = self._merge_op(ming, jnp.minimum)
+        mn, mx = minm[:nt], -minm[nt:]
+        cg = num * (1.0 / den2)[None]
+        cg = jnp.clip(cg, mn, mx)
         out = self._fix_q(cg, qf, wf[0], Ff)
         return out.reshape(q.shape)

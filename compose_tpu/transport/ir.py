@@ -1,4 +1,4 @@
-"""Cell-integrated remap (IR / CDG) transport, TPU-native.
+"""Cell-integrated remap (IR / CDG) transport.
 
 Counterpart of /root/reference/methods/slmm/slmmir_remapper.cpp (calc_T_fwd,
 fill_T_fwd_sphere, fill_T_fwd_facet, project_nolimiter /
@@ -67,6 +67,41 @@ def apply_T_contrib(T, xs):
     for b in range(1, np2):
         acc = acc + T[:, :, b] * xs[..., b][..., None]
     return acc
+
+
+def segment_sum_ordered(data, segment_ids, num_segments: int):
+    """jax.ops.segment_sum(data, segment_ids, num_segments) with a fixed
+    order: each segment adds its rows left to right in ascending row order,
+    starting from 0.0 - the order of XLA:CPU's sequential scatter-add, so
+    the bits equal segment_sum's on the CPU. On a GPU, segment_sum's
+    scatter-add accumulates with atomics in an order that changes from run
+    to run; this form is bitwise reproducible on every backend and, since
+    the sharded IR step enumerates its pairs in the same global order,
+    across decompositions. Rows whose id is outside [0, num_segments) are
+    dropped.
+
+    The rows are sorted by segment (stable) and a loop over the k-th row
+    of every segment runs max(segment size) times; no size bound is
+    assumed."""
+    n = segment_ids.shape[0]
+    seg = jnp.where((segment_ids >= 0) & (segment_ids < num_segments),
+                    segment_ids, num_segments)
+    order = jnp.argsort(seg, stable=True)
+    sorted_seg = seg[order]
+    ids = jnp.arange(num_segments)
+    start = jnp.searchsorted(sorted_seg, ids, side="left")
+    count = jnp.searchsorted(sorted_seg, ids, side="right") - start
+    bshape = (num_segments,) + (1,) * (data.ndim - 1)
+
+    def body(k, acc):
+        row = order[jnp.minimum(start + k, n - 1)]
+        take = (k < count).reshape(bshape)
+        # acc + 0.0 == acc exactly: acc starts at +0.0 and a sum of
+        # nonzero terms never rounds to -0.0.
+        return acc + jnp.where(take, data[row], 0.0)
+
+    acc = jnp.zeros((num_segments,) + data.shape[1:], data.dtype)
+    return jax.lax.fori_loop(0, jnp.max(count), body, acc)
 
 
 def dot_last(a, b):
@@ -396,8 +431,7 @@ class IrTransport:
         m = self.mesh
         if self.facet:
             colsum_p = jnp.sum(T, axis=-2)                  # (P, np2)
-            colsum = jax.ops.segment_sum(colsum_p, pair_src,
-                                         num_segments=m.ncell)
+            colsum = segment_sum_ordered(colsum_p, pair_src, m.ncell)
             colsum = jnp.where(colsum == 0, 1.0, colsum)
             return self.ird.gll_w2[None, :] / colsum
         F_adv = cubed_sphere._dgbfi_sphere(
@@ -409,8 +443,7 @@ class IrTransport:
     def _normalize_ps(self, ps_raw, pair_src):
         """Normalize p_s_ol columns to source shares (finish_p_s_ol,
         slmmir_remapper.cpp:170-205)."""
-        colsum = jax.ops.segment_sum(ps_raw, pair_src,
-                                     num_segments=self.mesh.ncell)
+        colsum = segment_sum_ordered(ps_raw, pair_src, self.mesh.ncell)
         cs = colsum[pair_src]
         return ps_raw / jnp.where(cs == 0, 1.0, cs)
 
@@ -422,10 +455,9 @@ class IrTransport:
         xs = jnp.where(pair_mask[..., None], xs, 0.0)
         contrib = apply_T_contrib(T, xs)
         cm = jnp.moveaxis(contrib, -2, 0)              # (P, ..., np2)
-        y = jax.ops.segment_sum(
+        y = segment_sum_ordered(
             cm, pair_tgt,
-            num_segments=(self.mesh.ncell if num_segments is None
-                          else num_segments))
+            self.mesh.ncell if num_segments is None else num_segments)
         return jnp.moveaxis(y, 0, -2)
 
     def _chol(self):
@@ -497,8 +529,8 @@ class IrTransport:
             xs = jnp.where(pair_mask[..., None], xs, 0.0)
             dp = mass_target_terms(ps, F_mass[pair_src], xs)
             dpm = jnp.moveaxis(dp, -1, 0)
-            d = jnp.moveaxis(jax.ops.segment_sum(
-                dpm, pair_tgt, num_segments=m.ncell), 0, -1)
+            d = jnp.moveaxis(segment_sum_ordered(dpm, pair_tgt, m.ncell),
+                             0, -1)
             # Facet: remove J_ref^sphere from the constraint vector because
             # it is part of the field (init_dgbfi_mass :250-256).
             c = F_mass / Jt if self.facet else F_mass

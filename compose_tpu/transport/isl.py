@@ -1,4 +1,4 @@
-"""Interpolation semi-Lagrangian (ISL) transport step, TPU-native.
+"""Interpolation semi-Lagrangian (ISL) transport step.
 
 Counterpart of /root/reference/methods/slmm/slmmir_remapper_isl.cpp. One
 transport step is a single jitted function:
@@ -32,8 +32,7 @@ from .. import basis as basis_mod
 from ..mesh import cubed_sphere
 from ..ops import local_qp, sphere, sqr
 from ..ops.reduce import bfb_sum, bfb_sum_cells
-from ..ops import df64
-from . import cdr_fused, dss, limiter as limiter_mod, spf, timeint
+from . import dss, limiter as limiter_mod, spf, timeint
 from .dss_face import FaceDss
 
 
@@ -61,12 +60,12 @@ class IslConfig:
     timeint: str = "exact"
     v_np: int = 4
     # Precision of the geometric pipeline (trajectories, point location,
-    # Newton inverse map, basis weights). f64 emulation dominates TPU step
-    # time; 'f32' runs geometry natively (~7x faster) while every
-    # mass-critical stage (interp values, CDR, limiter, DSS, reductions)
-    # stays f64, so conservation/bounds invariants are unchanged and only
-    # O(1e-7) interpolation-weight noise enters the (1e-2-scale) solution
-    # error. 'f64' reproduces the reference tolerances everywhere.
+    # Newton inverse map, basis weights). 'f32' halves the bytes and doubles
+    # the arithmetic rate of geometry while every mass-critical stage
+    # (interp values, CDR, limiter, DSS, reductions) stays f64, so
+    # conservation/bounds invariants are unchanged and only O(1e-7)
+    # interpolation-weight noise enters the (1e-2-scale) solution error.
+    # 'f64' reproduces the reference tolerances everywhere.
     geom_dtype: str = "f64"
     # Grid rotation spec ((axis), angle) for the -timeint interp coarse
     # velocity grid: it must share the fine mesh's rotation
@@ -74,8 +73,8 @@ class IslConfig:
     rotate: tuple = None
     # Tracer interpolation precision. With f32 geometry the interp WEIGHTS
     # already carry O(1e-7) noise, so gathering/contracting the tracer
-    # VALUES in f32 adds nothing new to the error budget - and that gather
-    # is the step's hottest kernel (half the bytes, native arithmetic).
+    # VALUES in f32 adds nothing new to the error budget, and moves half
+    # the bytes of the f64 gather.
     # Mass is still restored exactly by the f64 CDR (redistribution against
     # the f64 source mass) and bounds by the f64 clip/limiter, so the
     # conservation and shape-preservation invariants are unaffected. 'f64'
@@ -168,19 +167,6 @@ class IslTransport:
         return self._step_ext(rho, q, ts, tf, rho_tgt, mesh_tables=tables)
 
     # ------------------------------------------------------------------
-    def _fused_tracer_cdr_ok(self):
-        """Route the tracer CDR through the fused df64 TPU kernels
-        (transport/cdr_fused.py)? Single-device TPU only; the CPU/sharded
-        paths keep the reference-parity f64 XLA formulation."""
-        cfg = self.config
-        return (cdr_fused.available() and self.face_dss is not None
-                and self.face_dss.pallas_enabled
-                and cfg.filter == "caas" and cfg.limiter == "caas"
-                and not cfg.positive_only and self.fitext is None
-                and cfg.interp_dtype == "f32" and cfg.rho_isl
-                and 2 * self.face_dss.ndgll <= FaceDss._PALLAS_MAX_LANES)
-
-    # ------------------------------------------------------------------
     def _departure_data(self, ts, tf):
         m = self.mesh
         f32 = self.config.geom_dtype == "f32"
@@ -259,35 +245,36 @@ class IslTransport:
     def _dss(self, field, F=None):
         """DSS of a (ncell, np2) or (nt, ncell, np2) field.
 
-        Route: f32 fields take the FaceDss Pallas/roll fast path; f64
-        fields take the gather formulation - measured FASTER than the f64
-        roll path on TPU (6.1 vs 8.8 ms at ne30 x 40 tracers; f64 is
-        emulated, so fewer arithmetic passes win), and it is the exact
-        arithmetic the sharded step (parallel/sharded.py) reproduces
-        bitwise."""
-        if self.face_dss is not None:
-            return self.face_dss.dss(field)
-        m = self.mesh
-        Ff = (self.F if F is None else F).reshape(-1)
-        flat = field.reshape(field.shape[:-2] + (-1,))
-        if flat.ndim == 2:
-            out = dss.dss_gather_t(flat, self.d2c_map, m.c2d_idx,
-                                   m.c2d_mask, Ff)
-        else:
-            out = dss.dss_gather(flat, self.d2c_map, m.c2d_idx, m.c2d_mask,
-                                 Ff)
-        return out.reshape(field.shape)
+        Route: the FaceDss roll-merge path whenever the mesh has the
+        standard face-grid numbering (FaceDss.build), else the gather
+        formulation (transport/dss.py) - the exact arithmetic the sharded
+        step (parallel/sharded.py) reproduces bitwise; callers that compare
+        against the sharded step set face_dss = None to select it."""
+        with jax.named_scope("dss"):
+            if self.face_dss is not None:
+                return self.face_dss.dss(field)
+            m = self.mesh
+            Ff = (self.F if F is None else F).reshape(-1)
+            flat = field.reshape(field.shape[:-2] + (-1,))
+            if flat.ndim == 2:
+                out = dss.dss_gather_t(flat, self.d2c_map, m.c2d_idx,
+                                       m.c2d_mask, Ff)
+            else:
+                out = dss.dss_gather(flat, self.d2c_map, m.c2d_idx,
+                                     m.c2d_mask, Ff)
+            return out.reshape(field.shape)
 
     def _dss_q(self, rho_dg, q, F=None):
         """Mixing-ratio DSS; q: (nt, ncell, np2). See _dss for routing."""
-        if self.face_dss is not None:
-            return self.face_dss.dss_q(rho_dg, q)
-        m = self.mesh
-        Ff = (self.F if F is None else F).reshape(-1)
-        out = dss.dss_q_gather_t(rho_dg.reshape(-1),
-                                 q.reshape(q.shape[0], -1), self.d2c_map,
-                                 m.c2d_idx, m.c2d_mask, Ff)
-        return out.reshape(q.shape)
+        with jax.named_scope("dss"):
+            if self.face_dss is not None:
+                return self.face_dss.dss_q(rho_dg, q)
+            m = self.mesh
+            Ff = (self.F if F is None else F).reshape(-1)
+            out = dss.dss_q_gather_t(rho_dg.reshape(-1),
+                                     q.reshape(q.shape[0], -1), self.d2c_map,
+                                     m.c2d_idx, m.c2d_mask, Ff)
+            return out.reshape(q.shape)
 
     def _jacobian_cells(self, pc):
         """Isoparametric |J| for cells whose nodal departure positions are
@@ -438,57 +425,58 @@ class IslTransport:
             F, jac_node = mesh_tables
         else:
             F, jac_node = self.F, m.jac_node
-        dep, ci, w = self._departure_data(ts, tf)
+        with jax.named_scope("departure"):
+            dep, ci, w = self._departure_data(ts, tf)
         node_src_flat = None
 
         # --- Density transport + tracer interpolation.
-        if cfg.interp_dtype == "f32" and cfg.rho_isl:
-            # f32 fast path: the CDR restores mass against the f64
-            # pre-step masses and the bounds in f64, so the invariants are
-            # unchanged; f64 gathers are several times slower on TPU.
-            # ci (as exact small-int f32), the interpolated rho, and the
-            # interpolated tracers share ONE wide-row d2c gather - three
-            # scalar/narrow gathers fused into one (pure copies, so every
-            # downstream value is bitwise what the separate gathers gave).
-            f32 = jnp.float32
-            w32 = w.astype(f32)
-            ri = self._interp(rho.astype(f32), ci, w32)      # (cnn,)
-            qi = self._interp(q.astype(f32), ci, w32)        # (nt, cnn)
-            pack = jnp.concatenate(
-                [ci.astype(f32)[:, None], ri[:, None],
-                 jnp.moveaxis(qi, 0, -1)], axis=1)           # (cnn, nt+2)
-            g = pack[self.d2c_map]                           # (ndgll, nt+2)
-            node_src_flat = g[:, 0].astype(jnp.int32)
-            Jdep = self._jacobian_departure(dep)
-            ratio32 = Jdep.astype(f32) / jac_node.astype(f32)
-            rho_tgt = (ratio32 * g[:, 1].reshape(
-                m.ncell, m.np2)).astype(jnp.float64)
-            q_tgt32_flat = jnp.moveaxis(g[:, 2:], -1, 0)     # (nt, ndgll) f32
-            q_tgt = q_tgt32_flat.astype(jnp.float64).reshape(
-                q.shape[0], m.ncell, m.np2)
-        else:
-            if cfg.rho_isl:
-                rho_interp = self._interp(rho, ci, w)        # (cnn,)
-                Jdep = self._jacobian_departure(dep)         # (ncell, np2)
-                ratio = Jdep.astype(jac_node.dtype) / jac_node
-                rho_tgt = ratio * rho_interp[self.d2c_map].reshape(
-                    m.ncell, m.np2)
-            elif rho_tgt_ext is not None:
-                rho_tgt = rho_tgt_ext
+        with jax.named_scope("interp"):
+            if cfg.interp_dtype == "f32" and cfg.rho_isl:
+                # f32 path: the CDR restores mass against the f64 pre-step
+                # masses and the bounds in f64, so the invariants are
+                # unchanged. ci (as exact small-int f32), the interpolated
+                # rho, and the interpolated tracers share ONE wide-row d2c
+                # gather - three scalar/narrow gathers fused into one (pure
+                # copies, so every downstream value is bitwise what the
+                # separate gathers gave).
+                f32 = jnp.float32
+                w32 = w.astype(f32)
+                ri = self._interp(rho.astype(f32), ci, w32)   # (cnn,)
+                qi = self._interp(q.astype(f32), ci, w32)     # (nt, cnn)
+                pack = jnp.concatenate(
+                    [ci.astype(f32)[:, None], ri[:, None],
+                     jnp.moveaxis(qi, 0, -1)], axis=1)        # (cnn, nt+2)
+                g = pack[self.d2c_map]                        # (ndgll, nt+2)
+                node_src_flat = g[:, 0].astype(jnp.int32)
+                Jdep = self._jacobian_departure(dep)
+                ratio32 = Jdep.astype(f32) / jac_node.astype(f32)
+                rho_tgt = (ratio32 * g[:, 1].reshape(
+                    m.ncell, m.np2)).astype(jnp.float64)
+                q_tgt = jnp.moveaxis(g[:, 2:], -1, 0).astype(jnp.float64) \
+                    .reshape(q.shape[0], m.ncell, m.np2)
             else:
-                rho_tgt = rho
-            if cfg.interp_dtype == "f32":
-                q_interp = self._interp(
-                    q.astype(jnp.float32), ci,
-                    w.astype(jnp.float32)).astype(jnp.float64)  # (nt, cnn)
-            else:
-                q_interp = self._interp(q, ci, w)            # (nt, cnn)
-            # Scatter to DGLL slots tracer-innermost: indexing the last
-            # axis of (nt, cnn) gathers scalars; (cnn, nt) rows are
-            # nt-wide.
-            q_tgt = jnp.moveaxis(
-                jnp.moveaxis(q_interp, 0, -1)[self.d2c_map], -1, 0).reshape(
-                    q.shape[0], m.ncell, m.np2)
+                if cfg.rho_isl:
+                    rho_interp = self._interp(rho, ci, w)     # (cnn,)
+                    Jdep = self._jacobian_departure(dep)      # (ncell, np2)
+                    ratio = Jdep.astype(jac_node.dtype) / jac_node
+                    rho_tgt = ratio * rho_interp[self.d2c_map].reshape(
+                        m.ncell, m.np2)
+                elif rho_tgt_ext is not None:
+                    rho_tgt = rho_tgt_ext
+                else:
+                    rho_tgt = rho
+                if cfg.interp_dtype == "f32":
+                    q_interp = self._interp(
+                        q.astype(jnp.float32), ci,
+                        w.astype(jnp.float32)).astype(jnp.float64)
+                else:
+                    q_interp = self._interp(q, ci, w)         # (nt, cnn)
+                # Scatter to DGLL slots tracer-innermost: indexing the last
+                # axis of (nt, cnn) gathers scalars; (cnn, nt) rows are
+                # nt-wide.
+                q_tgt = jnp.moveaxis(
+                    jnp.moveaxis(q_interp, 0, -1)[self.d2c_map], -1,
+                    0).reshape(q.shape[0], m.ncell, m.np2)
 
         if cfg.filter == "none":
             rho_out = (self._dss(rho_tgt, F) if cfg.rho_isl else rho_tgt)
@@ -496,70 +484,30 @@ class IslTransport:
             return rho_out, q_out
 
         # --- CDR for rho (isl_cdr_rho, slmmir_remapper_isl.cpp:1240-1289).
-        Ff = F.reshape(-1)
-        if cfg.rho_isl and cfg.filter == "caas-node":
-            # Global-only nodal filter: uniform mass restoration
-            # (glbl_only_pve, slmmir_remapper_isl.cpp:366-387).
-            mm = bfb_sum_cells(jnp.stack([F * rho, F * rho_tgt]))
-            mass_src, mass_tgt = mm[0], mm[1]
-            rho_tgt = rho_tgt + (mass_src - mass_tgt) / bfb_sum(Ff)
-            rho_tgt = self._dss(rho_tgt, F)
-        elif cfg.rho_isl:
-            mm = bfb_sum_cells(jnp.stack([F * rho, F * rho_tgt]))
-            mass_src, mass_tgt = mm[0], mm[1]
-            # Bounds [0, 2] on cell-mean density (reference record(ti,0,2,..)).
-            rho_mass, R_min, R_mass, R_max = spf.record(
-                F, rho_tgt, rho_tgt,
-                jnp.zeros_like(rho_tgt), jnp.full_like(rho_tgt, 2.0))
-            redist = self.mrd.redistribute(
-                rho_mass, R_min, R_mass, R_max, mass_src - mass_tgt)
-            delta = redist - R_mass
-            rho_tgt = limiter_mod.limit_density(F, rho_tgt, delta)
-            rho_tgt = self._dss(rho_tgt, F)
+        with jax.named_scope("rho_cdr"):
+            Ff = F.reshape(-1)
+            if cfg.rho_isl and cfg.filter == "caas-node":
+                # Global-only nodal filter: uniform mass restoration
+                # (glbl_only_pve, slmmir_remapper_isl.cpp:366-387).
+                mm = bfb_sum_cells(jnp.stack([F * rho, F * rho_tgt]))
+                mass_src, mass_tgt = mm[0], mm[1]
+                rho_tgt = rho_tgt + (mass_src - mass_tgt) / bfb_sum(Ff)
+                rho_tgt = self._dss(rho_tgt, F)
+            elif cfg.rho_isl:
+                mm = bfb_sum_cells(jnp.stack([F * rho, F * rho_tgt]))
+                mass_src, mass_tgt = mm[0], mm[1]
+                # Bounds [0, 2] on cell-mean density (reference
+                # record(ti,0,2,..)).
+                rho_mass, R_min, R_mass, R_max = spf.record(
+                    F, rho_tgt, rho_tgt,
+                    jnp.zeros_like(rho_tgt), jnp.full_like(rho_tgt, 2.0))
+                redist = self.mrd.redistribute(
+                    rho_mass, R_min, R_mass, R_max, mass_src - mass_tgt)
+                delta = redist - R_mass
+                rho_tgt = limiter_mod.limit_density(F, rho_tgt, delta)
+                rho_tgt = self._dss(rho_tgt, F)
 
         # --- CDR for tracers (isl_cdr, :1292-1455), vectorized over nt.
-        nt = q.shape[0]
-
-        if (self._fused_tracer_cdr_ok() and rho_tgt_ext is None
-                and not cfg.positive_only):
-            # Fused df64 TPU path (transport/cdr_fused.py): the whole
-            # region runs on (hi, lo) f32 pairs - pair bounds gather,
-            # pair-arithmetic records, the global-CAAS kernel (which also
-            # folds the target-mass total), the cell-local limiter kernel,
-            # the DSS merge kernel, and the pair fix pass - with one f64
-            # materialization at the end. Reference flow: isl_cdr
-            # (slmmir_remapper_isl.cpp:1292-1455) with glbl_caas + local
-            # clip_and_sum. Never materializes Q_tgt or q_tgt in f64.
-            ndg = m.ncell * m.np2
-            Q_mass_src = bfb_sum_cells(F[None] * q * rho[None])
-            q_min_cell = jnp.min(q, axis=-1)
-            q_max_cell = jnp.max(q, axis=-1)
-            node_src_cell = node_src_flat.reshape(m.ncell, m.np2)
-            mnh, mnl = df64.split_f64(q_min_cell)
-            mxh, mxl = df64.split_f64(q_max_cell)
-            qmm4 = jnp.stack([mnh, mnl, mxh, mxl])           # (4, nt, ncell)
-            qn4 = jnp.moveaxis(
-                jnp.moveaxis(qmm4, (0, 1), (-2, -1))[node_src_cell],
-                (-2, -1), (0, 1))                            # (4, nt, nc, np2)
-            qmn_pair = (qn4[0].reshape(nt, ndg), qn4[1].reshape(nt, ndg))
-            qmx_pair = (qn4[2].reshape(nt, ndg), qn4[3].reshape(nt, ndg))
-            F_pair = df64.split_f64(Ff)
-            rho_pair = df64.split_f64(rho_tgt.reshape(-1))
-            rhom_pair = df64.mul(F_pair, rho_pair)
-            Cmin, Cmass, Cmax = cdr_fused.records_pairs(
-                rhom_pair, q_tgt32_flat, qmn_pair, qmx_pair, m.np2)
-            redist_pair = cdr_fused.glbl_caas_pairs(
-                Cmin, Cmass, Cmax, Q_mass_src)
-            qn_pair = cdr_fused.limit_pairs(
-                self.face_dss, q_tgt32_flat, F_pair, rho_pair, qmn_pair,
-                qmx_pair, redist_pair)
-            cg_pair = self.face_dss._pallas_q_dd_pairs(
-                (rhom_pair[0][None], rhom_pair[1][None]), qn_pair)
-            cg_pair = cdr_fused.fix_q_pairs(
-                self.face_dss, cg_pair, qn_pair, rhom_pair, F_pair)
-            q_out = df64.join_f64(cg_pair).reshape(q.shape)
-            return rho_tgt, q_out
-
         Q_tgt = q_tgt * rho_tgt[None]
         QQ = bfb_sum_cells(jnp.stack([F[None] * q * rho[None],
                                       F[None] * Q_tgt]))

@@ -284,7 +284,7 @@ def limit_tracer(F, rho, Q, q_min, q_max, Qm_extra,
     w = a
     # One reciprocal then multiply: under vmap over tracers, rho carries
     # no batch axis, so the reciprocal is computed once while Q/rho would
-    # be nt emulated-f64 divides per node (~50 ops each on TPU).
+    # be nt divides per node.
     y = Q * (1.0 / jnp.where(rho == 0, 1.0, rho))
     x = _spf_run(limiter, w, a, Qm_tot, q_min, q_max, y)
     if return_q:

@@ -4,7 +4,7 @@ Counterpart of /root/reference/methods/slmm/slmm_time_int.hpp (adaptive
 embedded RK ark23/ark45) and slmmir_time_int.cpp (MeshIntegrator). The
 reference integrates every CGLL node with per-node adaptive stepping and a
 tolerance ~1e2*eps - effectively exact trajectories. Per-node adaptivity is
-hostile to SIMD/TPU (divergent trip counts); instead we integrate all nodes
+hostile to SIMD (divergent trip counts); instead we integrate all nodes
 in lockstep with a fixed-substep Dormand-Prince RK5(4) step (the same tableau
 as the reference's ark45, slmm_time_int.hpp:273-417). With a handful of
 substeps per transport step the trajectory error lands far below the spatial

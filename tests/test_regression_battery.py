@@ -8,7 +8,7 @@ listed in PORTED_ELSEWHERE and not duplicated.
 
 Conventions and global waivers:
   - `-xyz` (integrate trajectories in (x,y,z) rather than (lat,lon),
-    slmmir.cpp:20): this build always integrates in xyz (the TPU-native
+    slmmir.cpp:20): this build always integrates in xyz (the branch-free
     choice), so row pairs differing only by -xyz collapse to one port.
   - `-o X -rit` only asserts the observer time-series machinery runs; the
     port passes observer_out to exercise the same path.
